@@ -1,7 +1,8 @@
-"""insider_tpu — a TPU-native framework for INSIDER-style interpretable sparse
+"""insider_tpu — a JAX framework for INSIDER-style interpretable sparse
 matrix decomposition.
 
-Reimplements, TPU-first (JAX/XLA/Pallas/pjit), the capabilities of the
+Reimplements, in JAX (XLA, with a Pallas/Triton column-solve kernel on NVIDIA
+GPUs), the capabilities of the
 kai0511/insider R package (RcppArmadillo/OpenMP): confounder-indexed low-rank
 decomposition
 
@@ -12,7 +13,8 @@ updates with strong-rule screening and KKT reactivation, masked train/test
 element splits, interaction factors, continuous covariates, two-stage
 hyperparameter tuning, and post-fit GLM interaction analysis.
 
-Reference behavior citations use ``/root/reference`` paths (file:line).
+Reference behavior citations are file:line paths in the kai0511/insider
+repository.
 
 Public API (mirrors the R package surface: R/insider.R:18,81,190 and
 R/glm_interaction.R:2):

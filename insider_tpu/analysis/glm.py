@@ -1,6 +1,6 @@
 """Post-fit GLM interaction inference.
 
-TPU-native equivalent of `glm_interaction` (R/glm_interaction.R:2-30): for
+Equivalent of `glm_interaction` (R/glm_interaction.R:2-30): for
 each interaction level, regress the stacked residual rows of that level's
 samples on the gene factor F^T (no intercept, gaussian family) and report
 coefficients and p-values.

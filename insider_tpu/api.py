@@ -153,9 +153,11 @@ class Insider:
         as the train mask, na as the test mask, partition as `tuning`.)
 
         The performance/robustness knobs are forwarded to FitConfig /
-        als.build_problem / als.optimize (VERDICT r3 weak #9):
+        als.build_problem / als.optimize:
           col_solver: "auto" | "fss" | "cd" (FitConfig.col_solver).
-          use_pallas: force the Pallas kernels on/off; None = auto.
+          use_pallas: the Triton column-solve kernel on/off; None = auto
+            (on for the 'gpu' backend, off for 'cpu'; True off the GPU
+            raises).
           checkpoint_path (+resume): boundary snapshots / deterministic resume.
           mask_dtype: e.g. jnp.uint8 for the memory-lean indicator storage.
           precompute: build the per-problem row-update constants (False =

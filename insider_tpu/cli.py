@@ -40,7 +40,7 @@ def _parse_seq(spec: str, integer=False):
 def _looks_like_header(line: str, delim: str) -> bool:
     """A first line is a header iff any of its fields is neither numeric nor
     an NA token.  (The old one-character `isalpha` heuristic misread "1e5"
-    as a header and "NA" data as one too — VERDICT r2 weak #7.)"""
+    as a header and "NA" data as one too"""
     for tok in line.rstrip("\r\n").split(delim):
         tok = tok.strip().strip('"')
         if tok == "" or tok.upper() in ("NA", "NAN", "N/A"):
@@ -217,6 +217,9 @@ def main(argv=None):
     ps.set_defaults(fn=cmd_simulate)
 
     args = ap.parse_args(argv)
+    from insider_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     args.fn(args)
 
 

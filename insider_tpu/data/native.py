@@ -93,7 +93,7 @@ def load_csv(path: str, delim: str = ",", skip_header: bool = False,
 
     strict: raise ValueError when any field is neither numeric nor a
     recognized NA token (e.g. "N5", "null") instead of silently reading it
-    as missing data (VERDICT r2 weak #7).
+    as missing data.
     """
     lib = _load()
     if lib is None:
@@ -201,7 +201,7 @@ def split_mask_block(global_shape: Tuple[int, int],
     no process ever holds the full mask (the distributed-ingestion analog
     of ratio_splitter).
 
-    SPLITTER VARIANT (ADVICE r4): this is element-wise Bernoulli(ratio) on
+    SPLITTER VARIANT: this is element-wise Bernoulli(ratio) on
     a per-element splitmix64 stream, NOT the exact-floor(n*ratio)-element
     selection of split_mask/ratio_splitter — exact-k selection needs a
     global pass no process can do here.  The same (data, seed) therefore
@@ -261,7 +261,7 @@ def file_ingest_callbacks(path: str, global_shape: Tuple[int, int],
     NOTE the splitter-variant caveat on split_mask_block: the partition is
     Bernoulli(ratio) per element, not ratio_splitter's exact-k sample — a
     from-file distributed run and an in-memory run of the same (data,
-    seed) hold out different test elements (ADVICE r4).
+    seed) hold out different test elements.
     """
     N, M = global_shape
 

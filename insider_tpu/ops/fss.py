@@ -3,9 +3,9 @@ elastic net.
 
 Why a second solver: coordinate descent (ops/col_update.py, the reference's
 strong_coordinate_descent) converges *linearly* with rate set by the Gram
-conditioning; on the flagship workload the median column needs ~50 sweeps to
-reach sub_tol, and on TPU every sweep is a full pass over (K, M) state —
-measured as 78% of the ALS iteration.  Feature-sign search (Lee, Battle,
+conditioning; on the flagship workload the median column needs many sweeps
+to reach sub_tol, and every sweep is a full pass over (K, M) state.
+Feature-sign search (Lee, Battle,
 Raina & Ng 2006) instead solves the sign-fixed quadratic subproblem EXACTLY
 with one batched K x K solve per outer step and only iterates on the
 (finite) sign pattern; from an ALS warm start the sign pattern is already
@@ -13,7 +13,7 @@ almost correct, so a handful of outer steps replaces ~150 sweeps.
 
 The reference ships its own R prototype of exactly this algorithm
 (`feature_sign_with_screening`, R/optimization_functions.R:136-238) as an
-alternative to CD — this is its batched TPU-native form, vectorized over all
+alternative to CD — this is its batched form, vectorized over all
 M gene columns with per-column active-set masks and convergence freezing.
 
 Per column j, minimizing (coordinate_descent.cpp objective)
@@ -95,11 +95,10 @@ def feature_sign_batched(
     sitting exactly on the boundary would oscillate activate/deactivate
     forever.  The slack is scaled by the column's gradient magnitude, so it
     admits only coordinates whose true |beta| would be below f32 resolution
-    anyway.  Default 1e-5 (must match kernels/fss_pallas.KKT_RTOL): tight
+    anyway.  Default 1e-5 (must match kernels/fss_triton.KKT_RTOL): tight
     enough that boundary coordinates activate and solve EXACTLY in the GJ
-    step rather than leaving slow CD-descent work to the polish (measured
-    6.2 -> 3.9 ms/iter at the flagship shape), loose enough to absorb the
-    f32 gradient noise floor.
+    step rather than leaving slow CD-descent work to the polish, loose
+    enough to absorb the f32 gradient noise floor.
     """
     K, M = beta0.shape
     lam = jnp.asarray(lam, beta0.dtype)
@@ -115,10 +114,9 @@ def feature_sign_batched(
     beta = beta0
     theta = jnp.sign(beta)
     active = beta != 0.0
-    # (A bulk warm-start activation — activating every KKT violator of the
-    # warm start at step 0 — was tried and measured WORSE on hardware:
-    # joint sign guesses destabilize the line search, and the extra polish
-    # work cost more than the saved outer steps.  Single-violator stays.)
+    # (Bulk warm-start activation — activating every KKT violator of the
+    # warm start at step 0 — makes joint sign guesses that destabilize the
+    # line search; single-violator activation stays.)
     state = FSSState(beta, theta, active,
                      jnp.zeros(M, bool), jnp.int32(0))
 
@@ -152,7 +150,7 @@ def feature_sign_batched(
         # Coordinates that crossed at t: exact zero, deactivate.  Frozen
         # (converged) columns are excluded — their beta did not move, so a
         # near-zero active coordinate must not be re-zeroed (matches the
-        # kernel's `live` guard, kernels/fss_pallas.py).
+        # kernel's `live` guard, kernels/fss_triton.py).
         crossed = (flip & (t_k <= t[None, :]) & (t[None, :] < 1.0)
                    & (~st.converged)[None, :])
         beta_new = jnp.where(crossed, 0.0, beta_new)

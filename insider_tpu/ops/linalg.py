@@ -1,12 +1,11 @@
-"""Small-K batched linear algebra, TPU-first.
+"""Small-K batched linear algebra.
 
 The normal-equation solves in INSIDER are K x K with K ~ 3..50, batched over
-up to ~1e5 systems (levels or gene columns).  XLA's LAPACK-style
-cholesky/triangular_solve custom calls are built for big single matrices —
-they compile slowly per shape and don't map well to the VPU for tiny K.
-Instead we use an unrolled, fully vectorized Gauss-Jordan elimination: K
+up to ~1e5 systems (levels or gene columns).  Instead of LAPACK-style
+cholesky/triangular_solve custom calls, which are built for big single
+matrices, we use an unrolled, fully vectorized Gauss-Jordan elimination: K
 rank-1 sweeps of elementwise ops over the whole batch, which XLA fuses into a
-handful of VPU kernels.  No pivoting — every system here is SPD with a ridge
+handful of elementwise kernels.  No pivoting — every system here is SPD with a ridge
 term on the diagonal (src/optimize.cpp:174: XtX.diag() += lambda), so the
 pivots are bounded below by lambda.
 """

@@ -1,9 +1,10 @@
-"""Multi-host runtime: jax.distributed bring-up and pod-slice mesh layout.
+"""Multi-host runtime: jax.distributed bring-up and global mesh layout.
 
 The reference is a single OpenMP process with no communication backend at all
 (src/Makevars:11-13; SURVEY.md §2d).  For the rebuild, multi-host scaling is a
 first-class subsystem: each host runs the same SPMD program; XLA places
-collectives on ICI within a slice and DCN across slices.
+collectives on the interconnect (NCCL over NVLink between the cards of one
+host; gloo between CPU processes).
 
 Design for the INSIDER workload (see also sharding/mesh.py):
 
@@ -53,14 +54,10 @@ def initialize_distributed(
     Detection, in precedence order:
       1. explicit args;
       2. coordinator env (JAX_COORDINATOR_ADDRESS / COORDINATOR_ADDRESS) or a
-         multi-task SLURM allocation;
-      3. Cloud TPU pod-slice env markers (TPU_WORKER_HOSTNAMES /
-         TPU_WORKER_ID with >1 worker, or MEGASCALE_COORDINATOR_ADDRESS) —
-         jax.distributed.initialize() then auto-detects the coordinator from
-         TPU metadata.
-    Environments that expose none of these (rare) must set
-    JAX_COORDINATOR_ADDRESS explicitly.  Returns True iff a multi-process
-    runtime is up after the call.
+         multi-task SLURM allocation.
+    Elsewhere pass coordinator_address (e.g. "localhost:<port>"),
+    num_processes and process_id explicitly.  Returns True iff a
+    multi-process runtime is up after the call.
     """
     import jax
 
@@ -68,10 +65,7 @@ def initialize_distributed(
     env = ("JAX_COORDINATOR_ADDRESS" in os.environ
            or "COORDINATOR_ADDRESS" in os.environ
            or os.environ.get("SLURM_NTASKS", "1") not in ("", "1"))
-    hostnames = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    tpu_pod = (len([h for h in hostnames.split(",") if h]) > 1
-               or "MEGASCALE_COORDINATOR_ADDRESS" in os.environ)
-    if not (explicit or env or tpu_pod):
+    if not (explicit or env):
         return False
     kwargs = {}
     if coordinator_address is not None:

@@ -9,7 +9,7 @@ src/Makevars:11-13).  Here scaling is SPMD over a ('rows', 'cols') mesh
     zero communication in the hot loop, the tensor-parallel analog.
   * 'rows' shards the sample axis (data-parallel analog): per-level Grams and
     Xty segment-sums become partial sums that GSPMD combines with psum over
-    ICI; the K x K / L x K results are tiny.
+    the interconnect; the K x K / L x K results are tiny.
 
 Factors (V_v, W) are replicated — they are << data.  All collectives are
 XLA-inserted; apply_constraints pins the layouts GSPMD should preserve.
@@ -38,6 +38,19 @@ def make_mesh(cfg: ShardingConfig) -> Mesh:
     return Mesh(dev, ("rows", "cols"))
 
 
+def check_divisible(mesh: Optional[Mesh], shape: Tuple[int, int]) -> None:
+    """A sharded (N, M) problem needs N divisible by the 'rows' axis and M
+    by the 'cols' axis (jax places equal shards only)."""
+    if mesh is None:
+        return
+    rows, cols = mesh.shape["rows"], mesh.shape["cols"]
+    if shape[0] % rows or shape[1] % cols:
+        raise ValueError(
+            f"a ({rows}, {cols}) mesh needs the sample count divisible by "
+            f"{rows} and the gene count by {cols}; got {shape[0]} x "
+            f"{shape[1]}")
+
+
 def _put(x, mesh: Optional[Mesh], spec: P, dtype=None):
     if dtype is not None:
         x = np.asarray(x, dtype=np.dtype(jnp.dtype(dtype).name))
@@ -56,6 +69,7 @@ def shard_problem_arrays(
     dtype,
     mask_dtype=None,
 ):
+    check_divisible(mesh, data.shape)
     mat = P("rows", "cols")
     mdt = dtype if mask_dtype is None else mask_dtype
     data_d = _put(data, mesh, mat, dtype)

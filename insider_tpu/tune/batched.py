@@ -1,7 +1,7 @@
 """Device-batched hyperparameter trials.
 
 The reference runs each (lambda, alpha) grid point as a separate serial
-optimize call (R/insider.R:147-173).  On TPU the whole stage-2 grid for one
+optimize call (R/insider.R:147-173).  Here the whole stage-2 grid for one
 rank is a single vmapped program: trial states stack on a leading axis,
 (lambda1, lambda2, alpha) become per-trial vectors, and every XLA op
 processes all trials at once — G-fold batching that turns the
@@ -15,20 +15,15 @@ deviation: trials that satisfy the stopping rule before `tuning_iter` keep
 iterating (their factors stay at the fixed point) instead of freezing — the
 batch stops when all trials converge or the budget is reached.
 
-Uses the jnp solver paths (not the Pallas kernels — pallas_call is not
-vmap-batchable here).  The column sub-solver is the caller's explicit choice
-(`col_solver`, default "auto" = fss+polish, matching FitConfig);
-tests/test_batched_tune.py asserts batched-vs-serial agreement per solver.
+Uses the jnp solver paths (not the Triton column-solve kernel).  The
+column sub-solver is the caller's explicit choice (`col_solver`, default
+"auto" = fss+polish, matching FitConfig); tests/test_batched_tune.py
+asserts batched-vs-serial agreement per solver.
 
-Where batching wins — measured on hardware (tools/tune_bench.py,
-TUNE_r04.json): at the flagship 377x44477 shape the vmapped grid is ~4x
-SLOWER than the serial loop and ~27x slower than serial+Pallas, because
-vmap materializes G copies of every (N, M)-scale intermediate and the
-update becomes HBM-bound while the serial loop runs the VMEM-resident
-fused kernels.  The production tune driver (tune/grid.py) therefore keeps
-the serial+kernels path on TPU; this module's regime is many SMALL trials
-(dispatch-latency-bound on CPU/virtual meshes, where tests confirm the
-win) — not large-matrix grids on a single chip.
+vmap materializes G copies of every (N, M)-scale intermediate, so at large
+shapes the batch is bound by memory traffic; its regime is many SMALL
+trials, whose single-trial ops are bound by dispatch latency.  Whether it
+beats serial trials on the GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -177,7 +172,7 @@ def run_batched_trials(
     to fresh per-seed N(0, 0.001^2) inits.
     col_solver: column sub-solver, as FitConfig.col_solver ("auto" = fss +
     polish; "cd" = the reference's strong-rule CD) — explicit so batched and
-    serial comparisons exercise the same code path (VERDICT r2 weak #4).
+    serial comparisons exercise the same code path.
     """
     G = len(grid)
     M = problem.shape[1]

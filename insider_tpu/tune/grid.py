@@ -139,8 +139,7 @@ def tune(obj, latent_dimension, lambda_=0.1, alpha=0.0, out_dir=".",
         )
         # expand.grid: first factor (lambda) varies fastest (R/insider.R:145).
         # Values pass through untouched — the reference does not round, and
-        # rounding to 2 decimals collapsed e.g. a 0.125-vs-0.1251 sweep
-        # (VERDICT r2 weak #7).
+        # rounding to 2 decimals collapsed e.g. a 0.125-vs-0.1251 sweep.
         grid = [(l, a) for a in alphas for l in lambdas]
         if batch_grid:
             from insider_tpu.tune.batched import run_batched_trials

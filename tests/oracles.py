@@ -141,9 +141,9 @@ def reference_optimize(data, mask, test_mask, codes_list, n_levels, F0,
                        masked=True, rng_seed=0):
     """END-TO-END f64 transliteration of the reference ALS driver
     (src/optimize.cpp:256-422): the independent implementation the JAX
-    driver's boundary trajectory is pinned against (VERDICT r3 missing #3 —
-    this image has no R toolchain, so a numpy f64 rewrite of the C++ loop is
-    the strongest feasible cross-check).
+    driver's boundary trajectory is pinned against (without an R toolchain,
+    a numpy f64 rewrite of the C++ loop is the strongest feasible
+    cross-check).
 
     Follows the C++ control flow exactly:
       * initial predict/evaluate/loss before the loop (:320-323);

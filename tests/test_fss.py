@@ -1,9 +1,9 @@
-"""Feature-sign search solver (ops/fss.py + kernels/fss_pallas.py).
+"""Feature-sign search solver (ops/fss.py + kernels/fss_triton.py).
 
 Validation strategy: FSS must land on the SAME optimum as long-run
 coordinate descent (the subproblem is strictly convex), satisfy KKT exactly,
-and the Pallas kernel must reproduce the jnp reference bit-for-bit in
-interpret mode.
+and the Triton kernel must reproduce the jnp reference in interpret mode
+(more cases in tests/test_fss_triton.py).
 """
 
 import numpy as np
@@ -14,7 +14,7 @@ import jax.numpy as jnp
 
 from insider_tpu.ops.col_update import elastic_net_cd, update_columns_masked
 from insider_tpu.ops.fss import feature_sign_batched
-from insider_tpu.kernels.fss_pallas import feature_sign_pallas
+from insider_tpu.kernels.fss_triton import feature_sign_triton
 
 
 def _problem(K=10, M=300, N=70, seed=0, ill=True):
@@ -85,14 +85,13 @@ def test_fss_exact_zeros_lasso():
 
 def test_pallas_kernel_matches_jnp_interpret():
     # Same algorithm step for step; XLA may compile ULP-different arithmetic
-    # for the two paths (fusion/FMA choices vary with the CPU client), so
-    # compare to tight tolerance + identical objective, not bitwise.
+    # for the two paths, so compare to tight tolerance + identical
+    # objective, not bitwise.
     XtX, Xty, beta0 = _problem(K=12, M=300, seed=1)
     lam, alpha = 3.0, 0.6
     bj, _ = feature_sign_batched(XtX, Xty, beta0, lam, alpha, max_outer=64)
-    XtXt = jnp.transpose(XtX, (1, 2, 0))
-    bp = feature_sign_pallas(XtXt, Xty, beta0, lam, alpha, max_outer=64,
-                             interpret=True)
+    bp, _ = feature_sign_triton(XtX, Xty, beta0, lam, alpha, 0.0, None,
+                                max_outer=64, interpret=True)
     np.testing.assert_allclose(np.asarray(bp), np.asarray(bj), atol=2e-3)
     oj = _objective(bj, XtX, Xty, lam, alpha)
     op = _objective(bp, XtX, Xty, lam, alpha)
@@ -102,9 +101,8 @@ def test_pallas_kernel_matches_jnp_interpret():
 def test_pallas_padding_tail_block():
     # M far from a multiple of the block: padded columns must stay zero.
     XtX, Xty, beta0 = _problem(K=8, M=133, seed=2)
-    XtXt = jnp.transpose(XtX, (1, 2, 0))
-    bp = feature_sign_pallas(XtXt, Xty, beta0, 2.0, 0.5, max_outer=48,
-                             interpret=True, block=128)
+    bp, _ = feature_sign_triton(XtX, Xty, beta0, 2.0, 0.5, 0.0, None,
+                                max_outer=48, interpret=True, block=8)
     bj, _ = feature_sign_batched(XtX, Xty, beta0, 2.0, 0.5, max_outer=48)
     np.testing.assert_allclose(np.asarray(bp), np.asarray(bj), atol=2e-3)
     op = _objective(bp, XtX, Xty, 2.0, 0.5)
@@ -192,8 +190,7 @@ def test_als_with_fss_monotone_and_recovers():
 def test_fss_polish_removes_kkt_slack_excess():
     """update_columns_masked(solver='fss', fss_polish=True) must match the
     tight-tol CD objective on every column — the polish exists to remove the
-    f32 KKT-slack excess measured on hardware (TPU_SELFCHECK_r02: up to
-    ~1e-3 relative pre-polish on ill-scaled columns)."""
+    f32 KKT-slack excess FSS can leave on ill-scaled columns."""
     rng = np.random.default_rng(11)
     N, K, M = 80, 8, 150
     R = rng.normal(size=(N, K)).astype(np.float32) * 3.0
@@ -228,22 +225,23 @@ def test_fss_polish_removes_kkt_slack_excess():
     assert float(np.max((o_pol - o_raw) / scale)) < 1e-7
 
 
-def test_pallas_fused_polish_matches_two_stage(monkeypatch):
-    """feature_sign_pallas(polish_sweeps>0) == FSS kernel + separate plain-CD
-    at the same tol (interpret mode)."""
+def test_pallas_fused_polish_matches_two_stage():
+    """feature_sign_triton(polish_sweeps>0) == the kernel's raw FSS followed
+    by plain CD at the same tol and coordinate orders (interpret mode)."""
+    from insider_tpu.ops.col_update import make_sweep_perms
+
     XtX, Xty, beta0 = _problem(K=6, M=40, N=50, seed=5)
     lam, alpha = 2.0, 0.6
     tol = jnp.float32(1e-9)
-    XtXt = jnp.transpose(XtX, (1, 2, 0))
-    fused = feature_sign_pallas(XtXt, Xty, beta0, lam, alpha, max_outer=48,
-                                block=128, interpret=True,
-                                polish_sweeps=32, tol=tol)
-    raw = feature_sign_pallas(XtXt, Xty, beta0, lam, alpha, max_outer=48,
-                              block=128, interpret=True)
-    from insider_tpu.kernels.cd_pallas import elastic_net_cd_pallas
-    two = elastic_net_cd_pallas(XtXt, Xty, raw, lam, alpha, tol,
-                                max_sweeps=32, use_strong_rule=False,
-                                block=128, interpret=True)
+    key = jax.random.PRNGKey(0)
+    perms = make_sweep_perms(jax.random.split(key)[1], 6, 32)
+    fused, _ = feature_sign_triton(XtX, Xty, beta0, lam, alpha, tol, perms,
+                                   max_outer=48, polish_sweeps=32,
+                                   interpret=True)
+    raw, _ = feature_sign_triton(XtX, Xty, beta0, lam, alpha, 0.0, None,
+                                 max_outer=48, interpret=True)
+    two, _, _ = elastic_net_cd(XtX, Xty, raw, lam, alpha, tol, key,
+                               max_sweeps=32, use_strong_rule=False)
     np.testing.assert_allclose(np.asarray(fused), np.asarray(two),
                                rtol=1e-5, atol=1e-6)
     o_f = _objective(fused, XtX, Xty, lam, alpha)
@@ -251,115 +249,23 @@ def test_pallas_fused_polish_matches_two_stage(monkeypatch):
     assert float(np.max(o_f - o_r)) < 1e-6  # polish never hurts
 
 
-def test_auto_block_vmem_budget():
-    """_auto_block's scaling claim (VERDICT r2 weak #8): the block shrinks so
-    the dominant (K, K, BM) tensors stay inside the 12 MB VMEM budget at any
-    K, stays lane-aligned, and keeps the full block at the flagship K=24."""
-    from insider_tpu.kernels.fss_pallas import _auto_block
-
-    M = 200_000
-    assert _auto_block(24, 1024, M, big_tensors=3) == 1024
-    for K in (8, 24, 40, 48, 64, 96):
-        for big in (2, 3):
-            bm = _auto_block(K, 1024, M, big)
-            assert bm % 128 == 0 and bm >= 128
-            # within budget unless already at the 128 floor
-            assert big * K * K * bm * 4 <= 12 * 1024 * 1024 or bm == 128
-    # K=48 is past the "blows VMEM around K>~40" point: must have shrunk
-    assert _auto_block(48, 1024, M, big_tensors=3) < 1024
-
-
 def test_fss_kernel_k48_interpret():
-    """The kernel still computes the right answer at K=48, where _auto_block
-    picks a reduced block (the docstring's scaling-down claim, previously
-    untested beyond K=24)."""
-    from insider_tpu.kernels.fss_pallas import _auto_block
-
+    """The kernel computes the right answer at K=48 (padded to 64)."""
     XtX, Xty, beta0 = _problem(K=48, M=150, N=80, seed=7)
     lam, alpha = 3.0, 0.5
     bj, _ = feature_sign_batched(XtX, Xty, beta0, lam, alpha, max_outer=64)
-    XtXt = jnp.transpose(XtX, (1, 2, 0))
-    bp = feature_sign_pallas(XtXt, Xty, beta0, lam, alpha, max_outer=64,
-                             interpret=True)
-    # the auto block at this K/M: lane-aligned and VMEM-bounded
-    bm = _auto_block(48, 1024, 150, big_tensors=3)
-    assert 3 * 48 * 48 * bm * 4 <= 12 * 1024 * 1024
+    bp, _ = feature_sign_triton(XtX, Xty, beta0, lam, alpha, 0.0, None,
+                                max_outer=64, interpret=True)
     np.testing.assert_allclose(np.asarray(bp), np.asarray(bj), atol=2e-3)
     op = _objective(bp, XtX, Xty, lam, alpha)
     oj = _objective(bj, XtX, Xty, lam, alpha)
     assert float(np.abs(op - oj).max()) < 1e-4
 
 
-def test_fused_gram_variant_matches_streamed():
-    # feature_sign_fused_pallas (in-kernel gram/Xty builds) must match the
-    # streamed-gram kernel on the same problem, including the fused polish.
-    from insider_tpu.kernels.fss_pallas import (feature_sign_fused_pallas,
-                                                feature_sign_pallas)
-    from insider_tpu.ops.col_update import col_gram_masked_t
-
-    rng = np.random.default_rng(7)
-    N, K, M = 45, 6, 700
-    R = jnp.asarray(rng.standard_normal((N, K)), jnp.float32)
-    mask = jnp.asarray(rng.random((N, M)) > 0.1, jnp.float32)
-    data = jnp.asarray(rng.standard_normal((N, M)), jnp.float32)
-    wx = mask * data
-    Xty = jnp.matmul(R.T, wx, precision=jax.lax.Precision.HIGHEST)
-    beta0 = jnp.asarray(rng.standard_normal((K, M)) * 0.01, jnp.float32)
-
-    XtXt = col_gram_masked_t(R, mask)
-    a = feature_sign_pallas(XtXt, Xty, beta0, 2.0, 0.5, 32,
-                            polish_sweeps=16, tol=jnp.float32(1e-9),
-                            interpret=True, block=512)
-    b = feature_sign_fused_pallas(mask, wx, R, beta0, 2.0, 0.5, 32,
-                                  polish_sweeps=16, tol=jnp.float32(1e-9),
-                                  interpret=True, block=512)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-5,
-                               atol=1e-5)
-
-
-def test_fused_gram_variant_in_driver_path():
-    # update_columns_masked dispatches to the fused kernel when use_pallas
-    # and the row axis is local; it must agree with the jnp fss+polish path.
-    import insider_tpu.kernels.fss_pallas as fsp
-    from insider_tpu.ops import col_update
-
-    orig = fsp.feature_sign_fused_pallas
-
-    def interp(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    rng = np.random.default_rng(8)
-    N, K, M = 40, 5, 512
-    R = jnp.asarray(rng.standard_normal((N, K)), jnp.float32)
-    mask = jnp.asarray(rng.random((N, M)) > 0.15, jnp.float32)
-    data = jnp.asarray(rng.standard_normal((N, M)), jnp.float32)
-    F0 = jnp.asarray(rng.standard_normal((K, M)) * 0.01, jnp.float32)
-    kw = dict(lam=1.5, alpha=0.4, tol=jnp.float32(1e-9),
-              key=jax.random.PRNGKey(2), max_sweeps=40, solver="fss",
-              fss_polish=True, max_fss_polish_sweeps=32)
-
-    import unittest.mock as mock
-    with mock.patch.object(fsp, "feature_sign_fused_pallas", interp):
-        Fa, _, tag = col_update.update_columns_masked(
-            data, mask, R, F0, use_pallas=True, **kw)
-    assert int(tag) == -3  # the fused path actually ran
-    Fb, _, _ = col_update.update_columns_masked(
-        data, mask, R, F0, use_pallas=False, **kw)
-    np.testing.assert_allclose(np.asarray(Fa), np.asarray(Fb), rtol=5e-3,
-                               atol=5e-4)
-
-
 def test_fss_shared_gram_matches_streamed():
-    """Dense path: the shared-(K,K)-gram FSS kernel (incl. fused polish)
-    matches the streamed kernel fed the broadcast (K,K,M) tensor."""
-    import jax
-    import jax.numpy as jnp
-
-    from insider_tpu.kernels.fss_pallas import (
-        feature_sign_pallas,
-        feature_sign_shared_pallas,
-    )
+    """Dense path: the kernel fed one shared (K, K) gram (incl. the fused
+    polish) matches it fed the broadcast (M, K, K) tensor."""
+    from insider_tpu.ops.col_update import make_sweep_perms
 
     rng = np.random.default_rng(12)
     N, K, M = 60, 6, 700
@@ -368,12 +274,10 @@ def test_fss_shared_gram_matches_streamed():
     XtX = jnp.matmul(R.T, R, precision=jax.lax.Precision.HIGHEST)
     Xty = jnp.matmul(R.T, data, precision=jax.lax.Precision.HIGHEST)
     beta0 = jnp.asarray(rng.standard_normal((K, M)) * 0.01, jnp.float32)
-    XtXt = jnp.broadcast_to(XtX[:, :, None], (K, K, M))
-    a = feature_sign_pallas(XtXt, Xty, beta0, 2.0, 0.5, 48,
-                            polish_sweeps=16, tol=jnp.float32(1e-8),
-                            interpret=True, block=512)
-    b = feature_sign_shared_pallas(XtX, Xty, beta0, 2.0, 0.5, 48,
-                                   polish_sweeps=16, tol=jnp.float32(1e-8),
-                                   interpret=True, block=512)
+    perms = make_sweep_perms(jax.random.PRNGKey(3), K, 16)
+    kw = dict(max_outer=48, polish_sweeps=16, interpret=True, block=4)
+    a, _ = feature_sign_triton(jnp.broadcast_to(XtX, (M, K, K)), Xty, beta0,
+                               2.0, 0.5, 1e-8, perms, **kw)
+    b, _ = feature_sign_triton(XtX, Xty, beta0, 2.0, 0.5, 1e-8, perms, **kw)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-5,
                                atol=1e-5)

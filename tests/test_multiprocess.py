@@ -7,8 +7,7 @@ the boundary trajectory to match a single-process run of the same problem —
 the previously-untested multi-process branches of sharding/distributed.py.
 
 Skipped when subprocess spawning or the localhost coordinator is
-unavailable (e.g. restricted sandboxes); the committed MULTIPROC_r04.json
-is the standing artifact from an unrestricted run.
+unavailable (e.g. restricted sandboxes).
 """
 
 import json
@@ -39,7 +38,7 @@ def test_two_process_matches_single_process(tmp_path):
         pytest.fail(f"launcher failed (rc={proc.returncode}): {out[-2000:]}")
     result = json.loads(result_path.read_text())
     # both comm layouts: gene axis (1x8) AND sample axis (2x4) cross the
-    # process boundary (VERDICT r3 missing #4)
+    # process boundary
     assert set(result["layouts"]) == {"1x8", "2x4"}
     for name, lay in result["layouts"].items():
         assert lay["multi"]["process_count"] == 2, name

@@ -39,8 +39,8 @@ def test_tsv_parse(tmp_path):
 
 
 def test_strict_na_tokens_and_quotes(tmp_path):
-    """NA/NaN/N/A (any case) and quoted fields parse; junk raises (VERDICT
-    r2 weak #7: any field starting with N used to silently become NaN)."""
+    """NA/NaN/N/A (any case) and quoted fields parse; junk raises (any
+    field starting with N used to silently become NaN)."""
     p = tmp_path / "ok.csv"
     with open(p, "w") as fh:
         fh.write('1.5,NA,nan,"2.5",N/A\n"3",NaN,-1e3, 4 ,5\n')

@@ -1,7 +1,7 @@
 """Reduced-scale replay of the parity gate (tools/parity_run.py).
 
-The committed PARITY_r*.md artifact runs the flagship ageing configuration
-(/root/reference/tests/ageing.R:13-46) on the real device; this test replays
+tools/parity_run.py runs the flagship ageing configuration (reference
+tests/ageing.R:13-46) on the device; this test replays
 the same two gate protocols at a scale CI can afford on the CPU backend:
 
 A. fixed-budget trajectory agreement — both solvers (cd = the reference's
@@ -68,7 +68,7 @@ def _rel(a, b):
 
 def test_protocol_b_stop_fires(fits):
     # The relative-loss stop must actually fire for both solvers — the real
-    # converged flag, not n_iter inference (ADVICE r2).
+    # converged flag, not n_iter inference.
     for solver, res in fits.items():
         assert not res.diverged, solver
         assert res.converged, (solver, res.n_iter)

@@ -1,4 +1,4 @@
-"""From-file distributed ingestion proof at a non-toy shape (VERDICT r4 #4).
+"""From-file distributed ingestion proof at a non-toy shape.
 
 Two REAL OS processes (gloo collectives, (2, 4) global mesh) build a
 problem ONLY through `file_ingest_callbacks` (data/native.py): the data
@@ -8,19 +8,19 @@ the full matrix or a full mask.  The run's boundary loss/RMSE trajectory
 is compared against a single-process run whose problem is built IN MEMORY
 from the same file + the same (Bernoulli-block) split.
 
-The committed artifact (DIST_SCALE_r05.json) records, per process:
+Every process runs on the CPU (JAX_PLATFORMS=cpu), so no two processes ever
+share a GPU.  The result file records, per process:
   * device-resident problem bytes (sum of the local shards actually held —
     one half of the global matrix per process at this mesh);
   * the largest single allocation the ingestion callbacks ever returned
     (must be one shard, not the full matrix);
   * peak RSS (VmHWM) as the end-to-end host-side bound.
 
-Together these substantiate the claim the round-4 judge asked for: a
-problem built from a raw file that NO single process materializes, with
-the distributed trajectory matching the in-memory build.
+Together these show a problem built from a raw file that NO single process
+materializes, with the distributed trajectory matching the in-memory build.
 
 Usage:
-    python tools/dist_scale_run.py [--result DIST_SCALE_r05.json]
+    python tools/dist_scale_run.py [--result dist_scale_result.json]
 """
 
 from __future__ import annotations
@@ -301,8 +301,7 @@ def main():
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--data-file", default=None)
     ap.add_argument("--out", default=os.path.join(REPO, ".dist_scale.json"))
-    ap.add_argument("--result",
-                    default=os.path.join(REPO, "DIST_SCALE_r05.json"))
+    ap.add_argument("--result", default="dist_scale_result.json")
     args = ap.parse_args()
     if args.worker:
         worker(args)

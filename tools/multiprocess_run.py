@@ -1,4 +1,4 @@
-"""Real multi-process distributed execution proof (VERDICT r2 task 4).
+"""Real multi-process distributed execution proof.
 
 The reference is a single OpenMP process with no communication backend at all
 (src/Makevars:11-13) — multi-host scaling is a subsystem this framework adds,
@@ -11,13 +11,15 @@ matrix), runs the full ALS step over the (1, 8) global mesh for 3 check
 boundaries, and compares the per-boundary loss/RMSE trajectory against a
 single-process run of the identical problem on an 8-virtual-device mesh.
 
-Exercises every previously-untested branch of sharding/distributed.py:46-84:
+Every process runs on the CPU (JAX_PLATFORMS=cpu), so no two processes ever
+share a GPU.  Exercises the multi-process branches of
+sharding/distributed.py:
 multi-process initialize, cross-process make_array_from_process_local_data,
 process_block on a mesh where addressable devices are a strict subset, and
 cross-process psums in the row update.
 
 Usage:
-    python tools/multiprocess_run.py            # launcher: writes MULTIPROC_r03.json
+    python tools/multiprocess_run.py   # launcher: writes multiproc_result.json
     (workers are spawned internally with --worker)
 
 tests/test_multiprocess.py runs the same launcher under pytest (skipped when
@@ -51,7 +53,7 @@ def build_and_fit(num_processes: int, mesh_rows: int, mesh_cols: int):
     psums over 'cols' for F F^T).  mesh (2, 4): the SAMPLE axis crosses it —
     the per-level gram/Xty psums over 'rows' (train/als.py) ride gloo
     between real processes, the data-parallel axis the 500k-row BASELINE
-    configs need (VERDICT r3 missing #4)."""
+    configs need."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -227,7 +229,7 @@ def launcher(args):
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
 
-    # Both comm layouts (VERDICT r3 missing #4): (1, 8) crosses the process
+    # Both comm layouts: (1, 8) crosses the process
     # boundary on the GENE axis; (2, 4) crosses it on the SAMPLE axis, so
     # the per-level gram/Xty psums over 'rows' run over real gloo.
     layouts = {}
@@ -259,8 +261,7 @@ def main():
     ap.add_argument("--out", default="multiproc_worker.json")
     ap.add_argument("--mesh-rows", type=int, default=1)
     ap.add_argument("--mesh-cols", type=int, default=8)
-    ap.add_argument("--result", default=os.path.join(REPO,
-                                                     "MULTIPROC_r04.json"))
+    ap.add_argument("--result", default="multiproc_result.json")
     args = ap.parse_args()
     if args.worker:
         worker(args)
